@@ -49,54 +49,22 @@ def make_distribution(kind: str, n: int, d: int, rng):
     return x, cats
 
 
-def run_config(kind, n, d, batch, k, selectivity, engine_opts, compact=False,
-               compact_subprocess=False):
-    import vecgo_tpu as vecgo
-    from vecgo_tpu import metadata as md
-    from vecgo_tpu.utils import testutil as tu
+def run_config(kind, n, d, batch, k, selectivity, engine_opts, compact=False):
+    import vecgo
+    from vecgo import metadata as md
+    from vecgo.utils import testutil as tu
 
     rng = np.random.default_rng(42)
     x, cats = make_distribution(kind, n, d, rng)
-    tmp = None
-    if compact and compact_subprocess:
-        # Writer/reader separation (reference: vecgo.go:151-179): the graph
-        # build runs in a SEPARATE writer process over a shared Local store,
-        # and this (serving) process reopens the new manifest version. On
-        # TPU this is also the clean containment for the jax executable-
-        # reuse bug — the build's programs never touch the serving runtime
-        # (vecgo_tpu/tools/compact.py).
-        import tempfile
-
-        tmp = tempfile.mkdtemp(prefix="vecgo_suite_")
-        backend = vecgo.Local(tmp)
-    else:
-        backend = vecgo.Memory()
-    db = vecgo.Open(backend, vecgo.Create(dim=d, **engine_opts))
+    db = vecgo.Open(vecgo.Memory(), vecgo.Create(dim=d, **engine_opts))
     log(f"  [{kind}] ingesting {n} rows...")
     ids = db.insert_batch(x, metadatas=[{"cat": int(c)} for c in cats])
     log(f"  [{kind}] committing (flush -> segment)...")
     db.commit()
-    if compact and compact_subprocess:
-        import subprocess
-        import sys as _sys
-
-        log(f"  [{kind}] compacting in a writer subprocess (graph build)...")
-        db.close()
-        t0 = time.perf_counter()
-        r = subprocess.run(
-            [_sys.executable, "-m", "vecgo_tpu.tools.compact", tmp, "--all"],
-            capture_output=True, text=True, timeout=3600,
-            cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        )
-        if r.returncode != 0:
-            raise RuntimeError(f"compact worker failed: {r.stderr[-2000:]}")
-        out_extra = {"compact_s": round(time.perf_counter() - t0, 1),
-                     "compact_worker": json.loads(r.stdout.strip().splitlines()[-1])}
-        log(f"  [{kind}] reopening after writer compaction...")
-        db = vecgo.Open(backend)  # existing db: config comes from the manifest
-    elif compact:
+    if compact:
         # Graphs come from compaction (reference: flat on flush, DiskANN at
-        # merge) — compact so the suite measures GRAPH-segment serving.
+        # merge) — compact so the suite measures GRAPH-segment serving. In
+        # this process: one process owns the GPU.
         log(f"  [{kind}] compacting (graph build)...")
         t0 = time.perf_counter()
         db.compact([h.seg_id for h in db.engine._segments])
@@ -232,23 +200,14 @@ def main():
         help="compact after commit so serving runs on GRAPH segments",
     )
     ap.add_argument(
-        "--compact-subprocess", action="store_true",
-        help="run the compaction (graph build) in a separate writer process "
-        "over a Local store and reopen — the production topology, and the "
-        "TPU containment for the jax executable-reuse bug (implies --compact)",
-    )
-    ap.add_argument(
         "--dists", default="",
         help="comma-separated subset of distributions (default: all five)",
     )
     args = ap.parse_args()
 
-    try:
-        from vecgo_tpu.utils.jaxcache import enable_compilation_cache
+    from vecgo.utils.jaxcache import enable_compilation_cache
 
-        enable_compilation_cache()
-    except Exception:
-        pass
+    enable_compilation_cache()
 
     opts = {"flat_scan_dtype": args.scan_dtype}
     if args.quantizer != "none":
@@ -261,8 +220,7 @@ def main():
         log(f"running {kind}...")
         row = run_config(
             kind, args.n, args.d, args.batch, args.k, args.selectivity, opts,
-            compact=args.compact or args.compact_subprocess,
-            compact_subprocess=args.compact_subprocess,
+            compact=args.compact,
         )
         rows.append(row)
         print(json.dumps(row), flush=True)

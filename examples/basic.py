@@ -2,7 +2,7 @@
 
 import numpy as np
 
-import vecgo_tpu as vecgo
+import vecgo
 
 
 def main():

@@ -1,13 +1,13 @@
 """Bulk loading a large corpus (reference: examples/bulk_load — the deferred
-insert path; on TPU, bulk appends ARE the only insert path and run at millions
+insert path; here bulk appends ARE the only insert path and run at millions
 of rows/s host-side)."""
 
 import time
 
 import numpy as np
 
-import vecgo_tpu as vecgo
-from vecgo_tpu.engine import EngineOptions
+import vecgo
+from vecgo.engine import EngineOptions
 
 
 def main():

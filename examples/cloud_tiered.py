@@ -5,9 +5,9 @@ import tempfile
 
 import numpy as np
 
-import vecgo_tpu as vecgo
-from vecgo_tpu.blobstore import MemoryStore
-from vecgo_tpu.storage.cache import CachingStore, DiskCache, LRUCache, TieredCache
+import vecgo
+from vecgo.blobstore import MemoryStore
+from vecgo.storage.cache import CachingStore, DiskCache, LRUCache, TieredCache
 
 
 def main():

@@ -7,8 +7,8 @@ the abstract cost model (QueryStats.explain / estimated_cost).
 
 import numpy as np
 
-import vecgo_tpu as vecgo
-from vecgo_tpu import metadata as md
+import vecgo
+from vecgo import metadata as md
 
 
 def main():

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-import vecgo_tpu as vecgo
-from vecgo_tpu import metadata as md
+import vecgo
+from vecgo import metadata as md
 
 
 def main():

@@ -3,15 +3,15 @@
 
 import numpy as np
 
-import vecgo_tpu as vecgo
-from vecgo_tpu.engine import EngineOptions
+import vecgo
+from vecgo.engine import EngineOptions
 
 DOCS = [
-    "jax compiles numerical programs for tpus",
+    "jax compiles numerical programs for gpus",
     "the quick brown fox jumps over the lazy dog",
     "vector databases answer nearest neighbor queries",
     "bm25 ranks documents by term frequency statistics",
-    "tpus multiply matrices with a systolic array",
+    "gpus multiply matrices with tensor cores",
     "hybrid search fuses lexical and semantic signals",
 ]
 
@@ -34,7 +34,7 @@ def main():
     db.insert_batch(embs, texts=DOCS, payloads=[d.encode() for d in DOCS])
     db.commit()
 
-    query = "how do tpus do matrix multiplication"
+    query = "how do gpus do matrix multiplication"
     qv = fake_embed([query])[0]
     hits = db.hybrid_search(qv, query, k=3)
     for h in hits:

@@ -12,11 +12,11 @@ import sys
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from vecgo_tpu.blobstore import MemoryStore
-from vecgo_tpu.blobstore.s3 import DDBCommitStore
-from vecgo_tpu.engine import Engine, EngineOptions
-from vecgo_tpu.engine.manifest import Manifest, ManifestStore
-from vecgo_tpu.errors import ErrConflict
+from vecgo.blobstore import MemoryStore
+from vecgo.blobstore.s3 import DDBCommitStore
+from vecgo.engine import Engine, EngineOptions
+from vecgo.engine.manifest import Manifest, ManifestStore
+from vecgo.errors import ErrConflict
 
 
 class FakeDDB:

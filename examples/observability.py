@@ -3,9 +3,9 @@ Prometheus adapter, examples/explain)."""
 
 import numpy as np
 
-import vecgo_tpu as vecgo
-from vecgo_tpu.engine import EngineOptions
-from vecgo_tpu.engine.metrics import CountingObserver
+import vecgo
+from vecgo.engine import EngineOptions
+from vecgo.engine.metrics import CountingObserver
 
 
 def main():
@@ -16,7 +16,7 @@ def main():
     db.insert_batch(x, metadatas=[{"group": f"g{i % 4}"} for i in range(500)])
     db.commit()
 
-    from vecgo_tpu import metadata as md
+    from vecgo import metadata as md
 
     res = db.search(x[0], k=5, filter=md.eq("group", "g0"), with_stats=True)
     print("--- QueryStats.explain() ---")

@@ -3,8 +3,8 @@
 
 import numpy as np
 
-import vecgo_tpu as vecgo
-from vecgo_tpu.engine import EngineOptions
+import vecgo
+from vecgo.engine import EngineOptions
 
 
 def main():

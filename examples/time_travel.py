@@ -2,8 +2,8 @@
 
 import numpy as np
 
-import vecgo_tpu as vecgo
-from vecgo_tpu.blobstore import MemoryStore
+import vecgo
+from vecgo.blobstore import MemoryStore
 
 
 def main():

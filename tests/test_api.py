@@ -4,10 +4,10 @@ vecgo.go API surface)."""
 import numpy as np
 import pytest
 
-import vecgo_tpu as vecgo
-from vecgo_tpu import metadata as md
-from vecgo_tpu.model import Metric
-from vecgo_tpu.utils import testutil as tu
+import vecgo
+from vecgo import metadata as md
+from vecgo.model import Metric
+from vecgo.utils import testutil as tu
 
 D = 12
 
@@ -36,7 +36,7 @@ def test_memory_backend_and_filters():
 
 def test_reader_writer_separation():
     """Stateless read replica over a shared store (reference: vecgo.Remote)."""
-    from vecgo_tpu.blobstore import MemoryStore
+    from vecgo.blobstore import MemoryStore
 
     shared = MemoryStore()
     writer = vecgo.Open(vecgo.Remote(shared), vecgo.Create(dim=D))
@@ -46,7 +46,7 @@ def test_reader_writer_separation():
     reader = vecgo.Open(vecgo.Remote(shared, read_only=True))
     assert reader.engine.options.read_only
     assert reader.search(x[2], k=1)[0].id == ids[2]
-    from vecgo_tpu.errors import ErrReadOnly
+    from vecgo.errors import ErrReadOnly
 
     with pytest.raises(ErrReadOnly):
         reader.insert(x[0])
@@ -58,7 +58,7 @@ def test_reader_writer_separation():
 
 
 def test_time_travel_via_open():
-    from vecgo_tpu.blobstore import MemoryStore
+    from vecgo.blobstore import MemoryStore
 
     shared = MemoryStore()
     db = vecgo.Open(vecgo.Remote(shared), vecgo.Create(dim=D))

@@ -5,10 +5,10 @@ engine.go:425-477, memory backpressure engine.go:446-450)."""
 import numpy as np
 import pytest
 
-from vecgo_tpu.blobstore import MemoryStore
-from vecgo_tpu.engine import Engine, EngineOptions
-from vecgo_tpu.errors import ErrBackpressure
-from vecgo_tpu.utils import testutil as tu
+from vecgo.blobstore import MemoryStore
+from vecgo.engine import Engine, EngineOptions
+from vecgo.errors import ErrBackpressure
+from vecgo.utils import testutil as tu
 
 D = 24
 
@@ -38,7 +38,7 @@ def test_streaming_equals_resident_flat():
 
 
 def test_streaming_pq_transport_flat():
-    """PQ stream transport (d/4 B/row H2D) must match the resident engine's
+    """PQ stream transport (d/2 B/row H2D) must match the resident engine's
     results: the coarser coded ordering is repaired by the 4x pool + exact
     host rerank (engine/search.py flat_stream branch)."""
     x, _ = tu.clustered_vectors(3000, D, n_clusters=12, seed=170)
@@ -80,7 +80,7 @@ def test_streaming_pq_transport_vamana():
 
 def test_streaming_quantized_flat_with_filter():
     x = tu.gaussian_vectors(2000, D, seed=72)
-    from vecgo_tpu.metadata import eq as md_eq
+    from vecgo.metadata import eq as md_eq
 
     mds = [{"cat": f"c{i % 3}"} for i in range(2000)]
     e1 = _mk(quantizer="sq8")
@@ -113,7 +113,7 @@ def test_streaming_vamana_brute_fallback():
 
 
 def test_lru_eviction_between_segments():
-    from vecgo_tpu.engine.resource import DeviceBudget
+    from vecgo.engine.resource import DeviceBudget
 
     x = tu.gaussian_vectors(4000, D, seed=75)
     e = _mk(compaction_threshold=10**9)

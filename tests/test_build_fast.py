@@ -5,16 +5,16 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from vecgo_tpu.index.build_fast import build_graph_clustered
-from vecgo_tpu.index.vamana import VamanaWriter, VamanaSegment
-from vecgo_tpu.model import Metric
-from vecgo_tpu.utils import testutil as tu
+from vecgo.index.build_fast import build_graph_clustered
+from vecgo.index.vamana import VamanaWriter, VamanaSegment
+from vecgo.model import Metric
+from vecgo.utils import testutil as tu
 
 
 def _search_recall(x, graph, medoid, ecent, enodes, q, true_ids, k=10, ef=96):
-    from vecgo_tpu.ops import beam as beam_ops
-    from vecgo_tpu.ops import distance as D
-    from vecgo_tpu.ops import topk as T
+    from vecgo.ops import beam as beam_ops
+    from vecgo.ops import distance as D
+    from vecgo.ops import topk as T
 
     qd = jnp.asarray(q)
     x16 = jnp.asarray(x, jnp.bfloat16)
@@ -115,7 +115,7 @@ def test_device_membership_matches_host():
 def test_train_kmeans_dev_matches_host():
     """Device-resident k-means == host-API k-means (same seeds, same math),
     on both the kmeans++ (k<=256) and random-init (k>256) paths."""
-    from vecgo_tpu.quantization import kmeans as km
+    from vecgo.quantization import kmeans as km
 
     x, _ = tu.clustered_vectors(4000, 16, n_clusters=24, seed=5)
     for k in (24, 300):

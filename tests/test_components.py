@@ -8,26 +8,26 @@ import time
 import numpy as np
 import pytest
 
-from vecgo_tpu.blobstore import MemoryStore
-from vecgo_tpu.blobstore.s3 import DDBCommitStore, S3ExpressStore, S3Store
-from vecgo_tpu.engine import Engine, EngineOptions
-from vecgo_tpu.engine.metrics import CountingObserver
-from vecgo_tpu.engine.policy import (
+from vecgo.blobstore import MemoryStore
+from vecgo.blobstore.s3 import DDBCommitStore, S3ExpressStore, S3Store
+from vecgo.engine import Engine, EngineOptions
+from vecgo.engine.metrics import CountingObserver
+from vecgo.engine.policy import (
     BoundedSizeTieredPolicy,
     LeveledPolicy,
     SegmentView,
     SizeTieredPolicy,
 )
-from vecgo_tpu.engine.resource import Controller, RateLimiter
-from vecgo_tpu.errors import ErrBackpressure, ErrConflict, ErrNotFound
-from vecgo_tpu.storage.cache import (
+from vecgo.engine.resource import Controller, RateLimiter
+from vecgo.errors import ErrBackpressure, ErrConflict, ErrNotFound
+from vecgo.storage.cache import (
     CachingStore,
     DiskCache,
     LRUCache,
     ShardedLRUCache,
     TieredCache,
 )
-from vecgo_tpu.utils import testutil as tu
+from vecgo.utils import testutil as tu
 
 D = 8
 
@@ -354,8 +354,8 @@ def test_manifest_store_ddb_commit_plane():
     """VERDICT r2 #10: DDBCommitStore wired into ManifestStore.save — two
     concurrent writers racing the same next version: one commits, one gets
     ErrConflict (reference: ddb_commit_store.go:105-172)."""
-    from vecgo_tpu.blobstore import MemoryStore
-    from vecgo_tpu.engine.manifest import Manifest, ManifestStore
+    from vecgo.blobstore import MemoryStore
+    from vecgo.engine.manifest import Manifest, ManifestStore
 
     ddb = FakeDDB()
     blob = MemoryStore()
@@ -371,7 +371,7 @@ def test_manifest_store_ddb_commit_plane():
     w1.save(m1, expect_version=0)
     import pytest as _pytest
 
-    from vecgo_tpu.errors import ErrConflict as _EC
+    from vecgo.errors import ErrConflict as _EC
 
     m2 = Manifest(version=2, lsn=6, next_id=9, next_seg_id=2)
     with _pytest.raises(_EC):
@@ -410,8 +410,8 @@ def test_caching_store_ranged_reads_are_block_granular():
     """VERDICT r2 #6: a partial read through CachingStore must fetch O(block)
     bytes from the inner store, never the whole object
     (reference: blobstore/caching_store.go:13-69)."""
-    from vecgo_tpu.blobstore import MemoryStore
-    from vecgo_tpu.storage.cache import CachingStore, LRUCache
+    from vecgo.blobstore import MemoryStore
+    from vecgo.storage.cache import CachingStore, LRUCache
 
     inner = MemoryStore()
     blob = bytes(range(256)) * 4096  # 1 MiB
@@ -440,9 +440,9 @@ def test_lazy_segment_open_defers_docs_payload():
     first access, via ranged reads (reference: diskann segment.go:1151)."""
     import json as _json
 
-    from vecgo_tpu.blobstore import MemoryStore
-    from vecgo_tpu.index.flat import FlatSegment, FlatWriter
-    from vecgo_tpu.model import Metric
+    from vecgo.blobstore import MemoryStore
+    from vecgo.index.flat import FlatSegment, FlatWriter
+    from vecgo.model import Metric
 
     w = FlatWriter(dim=8, metric=Metric.L2)
     rng = np.random.default_rng(3)
@@ -473,9 +473,9 @@ def test_cloud_open_fetches_blocks_not_objects():
     (file,offset)-keyed block cache, cache/types.go:22-43)."""
     import numpy as np
 
-    from vecgo_tpu.blobstore import MemoryStore
-    from vecgo_tpu.engine import Engine, EngineOptions
-    from vecgo_tpu.storage.cache import CachingStore, LRUCache
+    from vecgo.blobstore import MemoryStore
+    from vecgo.engine import Engine, EngineOptions
+    from vecgo.storage.cache import CachingStore, LRUCache
 
     inner = MemoryStore()
     eng = Engine.open(
@@ -512,7 +512,7 @@ def test_cloud_open_fetches_blocks_not_objects():
 
 def test_minio_store_fallback_cas():
     """MinioStore: conditional PUT when supported, exists+put fallback else."""
-    from vecgo_tpu.blobstore.s3 import MinioStore
+    from vecgo.blobstore.s3 import MinioStore
 
     class NoCondClient(FakeS3Client):
         def put_object(self, Bucket, Key, Body, IfNoneMatch=None):
@@ -535,7 +535,7 @@ def test_hostmem_primitives():
     (utils/hostmem — the ingest path's page-fault containment)."""
     import numpy as np
 
-    from vecgo_tpu.utils.hostmem import all_finite, huge_arange, huge_empty
+    from vecgo.utils.hostmem import all_finite, huge_arange, huge_empty
 
     a = huge_empty((1000, 7), np.float32)  # small -> np.empty fallback
     assert a.shape == (1000, 7) and a.dtype == np.float32
@@ -561,7 +561,7 @@ def test_hostmem_backends_all_modes():
     """Every calibration outcome must produce a correct, writable buffer."""
     import numpy as np
 
-    import vecgo_tpu.utils.hostmem as hm
+    import vecgo.utils.hostmem as hm
 
     saved = hm._mode
     try:

@@ -4,12 +4,12 @@ integration_test/ — CRUD, flush/compaction, isolation, time travel, recovery).
 import numpy as np
 import pytest
 
-from vecgo_tpu.blobstore import MemoryStore, FaultyStore
-from vecgo_tpu.engine import Engine, EngineOptions
-from vecgo_tpu.errors import ErrConflict, ErrNotFound, ErrReadOnly, ErrInvalidVector
-from vecgo_tpu.metadata import eq, gt, isin, Schema, FieldSpec, FieldType
-from vecgo_tpu.model import Metric
-from vecgo_tpu.utils import testutil as tu
+from vecgo.blobstore import MemoryStore, FaultyStore
+from vecgo.engine import Engine, EngineOptions
+from vecgo.errors import ErrConflict, ErrNotFound, ErrReadOnly, ErrInvalidVector
+from vecgo.metadata import eq, gt, isin, Schema, FieldSpec, FieldType
+from vecgo.model import Metric
+from vecgo.utils import testutil as tu
 
 D = 16
 
@@ -200,8 +200,8 @@ def test_filtered_compact_gather_low_selectivity():
     eng.commit()
     f = eq("g", 7)
     # confirm the plan actually chose the compact path
-    from vecgo_tpu.engine import search as sm
-    from vecgo_tpu.model import SearchOptions
+    from vecgo.engine import search as sm
+    from vecgo.model import SearchOptions
 
     snap = eng.snapshot()
     try:
@@ -239,8 +239,8 @@ def test_snapshot_isolation_under_churn():
         eng.delete(ids[0])
         eng.insert_batch(x[1:2] * 0.5, ids=[ids[1]])
         # snapshot still sees the old world
-        from vecgo_tpu.engine import search as sm
-        from vecgo_tpu.model import SearchOptions
+        from vecgo.engine import search as sm
+        from vecgo.model import SearchOptions
 
         got, dist, _, _ = sm.search_snapshot(
             snap, eng.pk, x[0:1], SearchOptions(k=1), eng.options
@@ -329,7 +329,7 @@ def test_schema_validation():
     eng = new_engine(schema=schema)
     x = tu.gaussian_vectors(2, D, seed=51)
     eng.insert(x[0], {"num": 5})
-    from vecgo_tpu.errors import ErrSchemaViolation
+    from vecgo.errors import ErrSchemaViolation
 
     with pytest.raises(ErrSchemaViolation):
         eng.insert(x[1], {"other": 1})
@@ -342,7 +342,7 @@ def test_invalid_vectors_rejected():
     bad = np.full(D, np.nan, np.float32)
     with pytest.raises(ErrInvalidVector):
         eng.insert(bad)
-    from vecgo_tpu.errors import ErrDimensionMismatch
+    from vecgo.errors import ErrDimensionMismatch
 
     with pytest.raises(ErrDimensionMismatch):
         eng.insert(np.ones(D + 1, np.float32))
@@ -500,9 +500,9 @@ def test_commit_ivf_reorder_pk_mapping():
 
 
 def test_flush_skips_ivf_kmeans_by_default():
-    """Flush-time k-means was 154 s of a 180 s 1M commit (probe_flush_phases)
-    while the TPU serving default ignores flat partitions (exact MXU sweep
-    beats partitioned probing, docs/PERF.md) — so flush skips it by default;
+    """Flush-time k-means dominated a 1M commit while the serving default
+    ignores flat partitions (the exact matmul sweep scans every block
+    anyway) — so flush skips it by default;
     compaction still partitions. nprobes on a partition-less segment must
     silently run exact."""
     eng = new_engine(ivf_rows_per_partition=64, flush_threshold=10_000_000)
@@ -653,7 +653,7 @@ def test_hamming_metric_end_to_end():
 def test_stats_depth_and_observer_surface():
     """nodes_visited / distance_computations populated; observer receives
     search duration + memtable status + queue depth (round-1 gaps)."""
-    from vecgo_tpu.engine.metrics import CountingObserver
+    from vecgo.engine.metrics import CountingObserver
 
     obs = CountingObserver()
     eng = new_engine(graph_threshold=200, compaction_threshold=2, observer=obs)
@@ -712,8 +712,8 @@ def test_search_arrays_matches_search_batch(monkeypatch):
     """search_arrays (pipelined bulk path) returns the same ids as
     search_batch, including across the chunked (>CHUNK_B) route. CHUNK_B is
     pinned small so the chunked route is exercised without a 2x4096-query
-    batch (the production default sizes chunks for TPU HBM amortization)."""
-    from vecgo_tpu.engine import search as search_mod
+    batch (the production default sizes chunks for HBM amortization)."""
+    from vecgo.engine import search as search_mod
 
     monkeypatch.setattr(search_mod, "CHUNK_B", 1024)
     eng = new_engine()
@@ -813,7 +813,7 @@ def test_close_checkpoint_excludes_uncommitted(tmp_path):
     """A PK checkpoint taken at Close must reflect only committed state: ids
     updated AFTER the last commit would otherwise resolve to memtable rows
     that no longer exist on reopen (crash model: lose since last Commit)."""
-    from vecgo_tpu.blobstore import LocalStore
+    from vecgo.blobstore import LocalStore
 
     store = LocalStore(str(tmp_path))
     eng = new_engine(store)
@@ -869,7 +869,7 @@ def test_compaction_slab_moves_docs_payloads():
         assert c.metadata == mk(i + 300, "b")
         assert c.payload == p2[i] or (c.payload is None and not p2[i])
     # Filters over merged interned columns still work.
-    from vecgo_tpu.metadata import contains
+    from vecgo.metadata import contains
     res = eng.search(x2[30], k=10, filter=eq("tag", "t1"))
     assert res and all(c.metadata["tag"] == "t1" for c in res)
     res = eng.search(x1[8], k=10, filter=contains("arr", "a2"))
@@ -881,8 +881,8 @@ def test_compaction_slab_moves_docs_payloads():
 def test_memtable_slab_chain_mixed_inserts():
     """Slab-chain memtable: per-row tail + bulk slabs interleave; views,
     gathers, chunked search, and flush export stay consistent."""
-    from vecgo_tpu.engine.memtable import MemTable
-    from vecgo_tpu.model import Metric
+    from vecgo.engine.memtable import MemTable
+    from vecgo.model import Metric
 
     mt = MemTable(8, Metric.L2)
     rng = np.random.default_rng(1)
@@ -951,7 +951,7 @@ def test_filtered_graph_recall_mid_selectivity():
     metadata filter (above the 30% brute cutoff, so the mask rides the graph
     path), recall@10 >= 0.95 vs masked ground truth. Exercises the
     selectivity-adaptive ef widening in engine/search.py."""
-    from vecgo_tpu.metadata import lt
+    from vecgo.metadata import lt
 
     n, d = 200_000, 24
     rng_l = np.random.default_rng(29)

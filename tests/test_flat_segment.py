@@ -5,13 +5,13 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from vecgo_tpu.errors import ErrCorrupt
-from vecgo_tpu.index.flat import FlatWriter, FlatSegment, bloom_may_contain
-from vecgo_tpu.metadata import eq, gt, gte, isin, contains, lt, Op, Filter, FilterSet
-from vecgo_tpu.metadata.columnar import ColumnarMeta
-from vecgo_tpu.model import Metric
-from vecgo_tpu.storage import container
-from vecgo_tpu.utils import testutil as tu
+from vecgo.errors import ErrCorrupt
+from vecgo.index.flat import FlatWriter, FlatSegment, bloom_may_contain
+from vecgo.metadata import eq, gt, gte, isin, contains, lt, Op, Filter, FilterSet
+from vecgo.metadata.columnar import ColumnarMeta
+from vecgo.model import Metric
+from vecgo.storage import container
+from vecgo.utils import testutil as tu
 
 N, D, K = 2000, 32, 10
 

@@ -4,9 +4,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from vecgo_tpu.index.fresh import FreshVamana
-from vecgo_tpu.model import Metric
-from vecgo_tpu.utils import testutil as tu
+from vecgo.index.fresh import FreshVamana
+from vecgo.model import Metric
+from vecgo.utils import testutil as tu
 
 D = 24
 

@@ -4,12 +4,12 @@ cases, quantization recall through the engine)."""
 import numpy as np
 import pytest
 
-from vecgo_tpu.blobstore import MemoryStore
-from vecgo_tpu.engine import Engine, EngineOptions
-from vecgo_tpu.index.vamana import VamanaSegment
-from vecgo_tpu.index.flat import FlatSegment
-from vecgo_tpu.metadata import eq
-from vecgo_tpu.utils import testutil as tu
+from vecgo.blobstore import MemoryStore
+from vecgo.engine import Engine, EngineOptions
+from vecgo.index.vamana import VamanaSegment
+from vecgo.index.flat import FlatSegment
+from vecgo.metadata import eq
+from vecgo.utils import testutil as tu
 
 D = 24
 
@@ -131,17 +131,16 @@ def test_compaction_to_vamana_preserves_payloads_metadata():
 
 
 def test_subprocess_compact_worker(tmp_path):
-    """Writer/reader separation: `python -m vecgo_tpu.tools.compact` merges
+    """Writer/reader separation: `python -m vecgo.tools.compact` merges
     segments in a SEPARATE process over a shared Local store; the serving
     process reopens the new version (reference: vecgo.go:151-179 writer +
-    stateless read replicas). On TPU this is also the production containment
-    for the jax executable-reuse dispatch bug (utils/devbug.py)."""
+    stateless read replicas)."""
     import json as _json
     import os
     import subprocess
     import sys
 
-    from vecgo_tpu.blobstore import LocalStore
+    from vecgo.blobstore import LocalStore
 
     d = str(tmp_path / "db")
     eng = Engine.open(
@@ -162,7 +161,7 @@ def test_subprocess_compact_worker(tmp_path):
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     r = subprocess.run(
-        [sys.executable, "-m", "vecgo_tpu.tools.compact", d, "--all",
+        [sys.executable, "-m", "vecgo.tools.compact", d, "--all",
          "--graph-threshold", "500", "--graph-r", "12",
          "--graph-l-build", "24"],
         capture_output=True, text=True, timeout=600, cwd=repo,

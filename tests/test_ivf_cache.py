@@ -7,11 +7,11 @@ Reference analogue: lazy block reads + block cache
 import numpy as np
 import pytest
 
-from vecgo_tpu.blobstore import MemoryStore
-from vecgo_tpu.engine import Engine, EngineOptions
-from vecgo_tpu.ops import ivf as ivf_ops
-from vecgo_tpu.ops.ivf_cache import ClusterCachedTable
-from vecgo_tpu.utils import testutil as tu
+from vecgo.blobstore import MemoryStore
+from vecgo.engine import Engine, EngineOptions
+from vecgo.ops import ivf as ivf_ops
+from vecgo.ops.ivf_cache import ClusterCachedTable
+from vecgo.utils import testutil as tu
 
 D = 32
 
@@ -38,7 +38,7 @@ def test_cached_scan_matches_full_table():
 
     table = ivf_ops.device_table_coded(members, jnp.asarray(x))
     d_ref, r_ref = ivf_ops.ivf_scan(
-        jnp.asarray(q), table, n_probe=4, kk=8, qcap=16, fused=False
+        jnp.asarray(q), table, n_probe=4, kk=8, qcap=16
     )
     cc = ClusterCachedTable(members, x, cache_clusters=k + 8)
     d_c, r_c = cc.probe_and_scan(q, n_probe=4, kk=8, qcap=16)
@@ -177,7 +177,7 @@ class _CountingStore(MemoryStore):
 
 
 def _coded_blob(x, seed=90, kind=True):
-    from vecgo_tpu.index.vamana import VamanaWriter
+    from vecgo.index.vamana import VamanaWriter
 
     w = VamanaWriter(x.shape[1], store_codes=kind, ivf_capacity=256, seed=seed)
     w.add_batch(x, np.arange(len(x)))
@@ -189,8 +189,8 @@ def test_store_codes_cloud_serving_is_block_granular():
     reading its vectors or full code table: the open skips both sections, and
     a query batch reads only the probed cluster blocks + the reranked rows
     (reference: diskann lazy block reads, segment.go:1151)."""
-    from vecgo_tpu.index.vamana import VamanaSegment
-    from vecgo_tpu.ops.ivf_cache import LazyHostTable
+    from vecgo.index.vamana import VamanaSegment
+    from vecgo.ops.ivf_cache import LazyHostTable
 
     x, _ = tu.clustered_vectors(6000, D, n_clusters=16, seed=91)
     blob = _coded_blob(x)
@@ -226,7 +226,7 @@ def test_store_codes_cloud_serving_is_block_granular():
 def test_store_codes_lazy_rerank_matches_memory():
     """Deferred-row rerank (ranged gathers) == in-memory rerank, bit-for-bit
     on the same candidate rows."""
-    from vecgo_tpu.index.vamana import VamanaSegment
+    from vecgo.index.vamana import VamanaSegment
 
     x, _ = tu.clustered_vectors(5000, D, n_clusters=12, seed=92)
     blob = _coded_blob(x, seed=93)
@@ -250,8 +250,8 @@ def test_store_codes_local_open_skips_reencode():
     """A local (bytes) open of a codes-stored segment builds its cluster
     cache from the persisted sections (MemHostTable over ivfq.*), not a
     fresh host encode — and serves the same candidates."""
-    from vecgo_tpu.index.vamana import VamanaSegment
-    from vecgo_tpu.ops.ivf_cache import MemHostTable
+    from vecgo.index.vamana import VamanaSegment
+    from vecgo.ops.ivf_cache import MemHostTable
 
     x, _ = tu.clustered_vectors(5000, D, n_clusters=12, seed=95)
     blob = _coded_blob(x, seed=96)
@@ -277,7 +277,7 @@ def test_store_codes_pq_transport_economics():
     fewer store-read and H2D bytes — the reference's PQ compression axis
     (quantization/pq.go; codes-resident serving segment.go:503-708), recast
     as transport compression for the cloud/cache tier."""
-    from vecgo_tpu.index.vamana import VamanaSegment
+    from vecgo.index.vamana import VamanaSegment
 
     x, _ = tu.clustered_vectors(6000, D, n_clusters=16, seed=91)
     q = x[5:21]
@@ -359,8 +359,8 @@ def test_container_load_rows_adversarial():
     import json
     import struct
 
-    from vecgo_tpu.errors import ErrCorrupt
-    from vecgo_tpu.storage import container
+    from vecgo.errors import ErrCorrupt
+    from vecgo.storage import container
 
     a = np.arange(40, dtype=np.float32).reshape(10, 4)
     blob = container.pack_container({"m": 1}, {"a": a})
@@ -403,7 +403,7 @@ def test_container_load_rows_adversarial():
 def test_container_load_rows():
     """Ranged row reads of a section == full-load slices; compressed sections
     fall back to a correct full-load path."""
-    from vecgo_tpu.storage import container
+    from vecgo.storage import container
 
     rng = np.random.default_rng(98)
     a = rng.standard_normal((100, 7)).astype(np.float32)

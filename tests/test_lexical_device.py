@@ -1,13 +1,13 @@
-"""DeviceBM25: TPU-resident lexical serving vs the exact host index
-(lexical/device_bm25.py). The device path is a bf16 MXU sweep + exact-f32
+"""DeviceBM25: device-resident lexical serving vs the exact host index
+(lexical/device_bm25.py). The device path is a bf16 matmul sweep + exact-f32
 pool rescore; rankings must agree with the exact path up to bf16 near-ties,
 and rare-term queries must fall back to the exact path verbatim."""
 
 import numpy as np
 import pytest
 
-from vecgo_tpu.lexical.bm25 import BM25Index
-from vecgo_tpu.lexical.device_bm25 import DeviceBM25
+from vecgo.lexical.bm25 import BM25Index
+from vecgo.lexical.device_bm25 import DeviceBM25
 
 WORDS = [f"word{i}" for i in range(300)]
 
@@ -89,9 +89,9 @@ def test_deletes_respected():
 
 
 def test_engine_hybrid_uses_device_snapshot():
-    from vecgo_tpu.blobstore import MemoryStore
-    from vecgo_tpu.engine import Engine, EngineOptions
-    from vecgo_tpu.utils import testutil as tu
+    from vecgo.blobstore import MemoryStore
+    from vecgo.engine import Engine, EngineOptions
+    from vecgo.utils import testutil as tu
 
     eng = Engine.open(
         MemoryStore(),

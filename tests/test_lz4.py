@@ -5,7 +5,7 @@ engine/fuzz_test.go — adversarial bytes must never crash a decoder)."""
 import numpy as np
 import pytest
 
-from vecgo_tpu.storage import lz4
+from vecgo.storage import lz4
 
 
 def _cases():
@@ -87,8 +87,8 @@ def test_adversarial_decompress_never_crashes():
 def test_container_lz4_roundtrip():
     """pack_container(compress='lz4') round-trips through unpack + lazy rows;
     if the native codec is unavailable it degrades to deflate transparently."""
-    from vecgo_tpu.blobstore import MemoryStore
-    from vecgo_tpu.storage import container
+    from vecgo.blobstore import MemoryStore
+    from vecgo.storage import container
 
     rng = np.random.default_rng(13)
     a = (rng.standard_normal((200, 9)) * 8).astype(np.int8)
@@ -105,7 +105,7 @@ def test_container_lz4_roundtrip():
     # corruption detected (CRC covers stored bytes)
     bad = bytearray(blob)
     bad[-10] ^= 0x55
-    from vecgo_tpu.errors import ErrCorrupt
+    from vecgo.errors import ErrCorrupt
 
     with pytest.raises(ErrCorrupt):
         container.unpack_container(bytes(bad))
@@ -114,9 +114,9 @@ def test_container_lz4_roundtrip():
 @pytest.mark.skipif(not lz4.available(), reason="native lz4 codec not built")
 def test_engine_lz4_segments():
     """compress_segments='lz4' end-to-end through commit + reopen."""
-    from vecgo_tpu.blobstore import MemoryStore
-    from vecgo_tpu.engine import Engine, EngineOptions
-    from vecgo_tpu.utils import testutil as tu
+    from vecgo.blobstore import MemoryStore
+    from vecgo.engine import Engine, EngineOptions
+    from vecgo.utils import testutil as tu
 
     store = MemoryStore()
     eng = Engine.open(

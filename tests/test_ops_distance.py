@@ -5,11 +5,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from vecgo_tpu.model import Metric
-from vecgo_tpu.ops import distance as D
-from vecgo_tpu.ops import topk as T
-from vecgo_tpu.ops import hamming as H
-from vecgo_tpu.utils import testutil as tu
+from vecgo.model import Metric
+from vecgo.ops import distance as D
+from vecgo.ops import topk as T
+from vecgo.ops import hamming as H
+from vecgo.utils import testutil as tu
 
 
 @pytest.fixture(scope="module")
@@ -116,10 +116,10 @@ def test_hamming_mxu_equals_popcount():
     qp = H.pack_bits(jnp.asarray(qb))
     xp = H.pack_bits(jnp.asarray(xb))
     via_pop = np.asarray(H.hamming_scores_popcount(qp, xp))
-    via_mxu = np.asarray(H.hamming_scores(qp, xp, d))
+    via_matmul = np.asarray(H.hamming_scores(qp, xp, d))
     want = (qb[:, None, :] != xb[None, :, :]).sum(-1)
     np.testing.assert_array_equal(via_pop, want)
-    np.testing.assert_allclose(via_mxu, want, atol=0.5)
+    np.testing.assert_allclose(via_matmul, want, atol=0.5)
 
 
 def test_hamming_non_multiple_of_32():

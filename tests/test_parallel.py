@@ -21,9 +21,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from vecgo_tpu.model import Metric
-from vecgo_tpu.parallel import mesh as pm
-from vecgo_tpu.utils import testutil as tu
+from vecgo.model import Metric
+from vecgo.parallel import mesh as pm
+from vecgo.utils import testutil as tu
 
 _ISOLATED = os.environ.get("VECGO_PARALLEL_ISOLATED") == "1"
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -100,7 +100,7 @@ def test_sharded_kmeans_matches_single_device(mesh8):
     for _ in range(5):
         c, inertia = step(xs, c)
     # single-device reference
-    from vecgo_tpu.quantization.kmeans import _lloyd
+    from vecgo.quantization.kmeans import _lloyd
 
     c_ref, _ = _lloyd(jnp.asarray(x), jnp.asarray(centers0), 5, 4096)
     np.testing.assert_allclose(np.asarray(c), np.asarray(c_ref), rtol=1e-3, atol=1e-4)
@@ -111,10 +111,10 @@ def test_sharded_snapshot_searcher(mesh8):
     mesh, tombstones respected, global ids returned."""
     import numpy as np
 
-    from vecgo_tpu.blobstore import MemoryStore
-    from vecgo_tpu.engine import Engine, EngineOptions
-    from vecgo_tpu.parallel.engine_shard import ShardedSnapshotSearcher
-    from vecgo_tpu.utils import testutil as tu
+    from vecgo.blobstore import MemoryStore
+    from vecgo.engine import Engine, EngineOptions
+    from vecgo.parallel.engine_shard import ShardedSnapshotSearcher
+    from vecgo.utils import testutil as tu
 
     eng = Engine.open(
         MemoryStore(),
@@ -149,12 +149,12 @@ def test_sharded_engine_full_plane(mesh8):
     engine/search.go:790-909)."""
     import numpy as np
 
-    from vecgo_tpu.blobstore import MemoryStore
-    from vecgo_tpu.engine import Engine, EngineOptions
-    from vecgo_tpu.parallel.engine_shard import (
+    from vecgo.blobstore import MemoryStore
+    from vecgo.engine import Engine, EngineOptions
+    from vecgo.parallel.engine_shard import (
         ShardedEngineSearcher, _brute_visible,
     )
-    from vecgo_tpu.utils import testutil as tu
+    from vecgo.utils import testutil as tu
 
     eng = Engine.open(
         MemoryStore(),
@@ -202,9 +202,9 @@ def test_sharded_cluster_knn_matches_local(mesh8):
     import jax, jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from vecgo_tpu.index.build_fast import _cluster_knn
-    from vecgo_tpu.parallel.engine_shard import sharded_cluster_knn
-    from vecgo_tpu.utils import testutil as tu
+    from vecgo.index.build_fast import _cluster_knn
+    from vecgo.parallel.engine_shard import sharded_cluster_knn
+    from vecgo.utils import testutil as tu
 
     n, d = 512, 16
     x = tu.gaussian_vectors(n, d, seed=91)
@@ -233,8 +233,8 @@ def test_build_graph_clustered_on_mesh(mesh8):
     (mesh must live on the default platform)."""
     import numpy as np
 
-    from vecgo_tpu.index.build_fast import build_graph_clustered
-    from vecgo_tpu.utils import testutil as tu
+    from vecgo.index.build_fast import build_graph_clustered
+    from vecgo.utils import testutil as tu
 
     n, d = 6000, 24
     x, _ = tu.clustered_vectors(n, d, n_clusters=24, seed=92)
@@ -259,9 +259,9 @@ def test_sharded_ivf_matches_single_device():
     top-k as the single-device two-stage path."""
     import jax.numpy as jnp
 
-    from vecgo_tpu.index.build_fast import build_graph_clustered
-    from vecgo_tpu.ops import ivf
-    from vecgo_tpu.parallel.mesh import ShardedIVF, make_mesh
+    from vecgo.index.build_fast import build_graph_clustered
+    from vecgo.ops import ivf
+    from vecgo.parallel.mesh import ShardedIVF, make_mesh
 
     x, _ = tu.clustered_vectors(20_000, 32, n_clusters=64, seed=7)
     rng = np.random.default_rng(11)
@@ -277,7 +277,7 @@ def test_sharded_ivf_matches_single_device():
 
     # Single-device reference: coded scan, cut to k by coded distance.
     sd, srows = ivf.ivf_scan(jnp.asarray(q), table, n_probe=8, kk=16)
-    from vecgo_tpu.ops.beam import _dedup_topk
+    from vecgo.ops.beam import _dedup_topk
 
     ref_d, ref_rows = _dedup_topk(sd, srows, 10)
     ref_rows = np.asarray(ref_rows)
@@ -303,8 +303,8 @@ def test_sharded_build_full_pipeline():
     import jax
     import jax.numpy as jnp
 
-    from vecgo_tpu.index.build_fast import build_graph_clustered
-    from vecgo_tpu.parallel.mesh import make_mesh
+    from vecgo.index.build_fast import build_graph_clustered
+    from vecgo.parallel.mesh import make_mesh
 
     x, _ = tu.clustered_vectors(8192, 24, n_clusters=32, seed=13)
     mesh = make_mesh(shard=4, dp=2)
@@ -321,7 +321,7 @@ def test_sharded_build_full_pipeline():
     assert deg.mean() >= 0.8 * (g_ref >= 0).sum(1).mean()
 
     # search quality parity: beam recall over both graphs
-    from vecgo_tpu.ops import beam as beam_ops
+    from vecgo.ops import beam as beam_ops
 
     rng = np.random.default_rng(3)
     q = x[rng.choice(len(x), 64, replace=False)]

@@ -5,10 +5,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from vecgo_tpu.model import Metric
-from vecgo_tpu import quantization as Q
-from vecgo_tpu.quantization import kmeans as km
-from vecgo_tpu.utils import testutil as tu
+from vecgo.model import Metric
+from vecgo import quantization as Q
+from vecgo.quantization import kmeans as km
+from vecgo.utils import testutil as tu
 
 N, D, B, K = 4096, 64, 16, 10
 

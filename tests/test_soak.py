@@ -9,10 +9,10 @@ import time
 import numpy as np
 import pytest
 
-from vecgo_tpu.blobstore import MemoryStore
-from vecgo_tpu.engine import Engine, EngineOptions
-from vecgo_tpu.errors import ErrNotFound
-from vecgo_tpu.utils import testutil as tu
+from vecgo.blobstore import MemoryStore
+from vecgo.engine import Engine, EngineOptions
+from vecgo.errors import ErrNotFound
+from vecgo.utils import testutil as tu
 
 D = 16
 

@@ -5,10 +5,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from vecgo_tpu.index.vamana import VamanaWriter, VamanaSegment, build_graph
-from vecgo_tpu.metadata import eq
-from vecgo_tpu.model import Metric
-from vecgo_tpu.utils import testutil as tu
+from vecgo.index.vamana import VamanaWriter, VamanaSegment, build_graph
+from vecgo.metadata import eq
+from vecgo.model import Metric
+from vecgo.utils import testutil as tu
 
 N, D, K = 5000, 32, 10
 
@@ -98,7 +98,7 @@ def test_cosine_vamana():
         w.add(x[i], i)
     seg = VamanaSegment.open(w.finish())
     q = tu.gaussian_vectors(8, 16, seed=37)
-    from vecgo_tpu.ops.distance import normalize
+    from vecgo.ops.distance import normalize
 
     d, rows = seg.search(normalize(jnp.asarray(q)), K, ef=64)
     _, true_ids = tu.brute_force_knn(q, x, K, "cosine")

@@ -5,7 +5,7 @@ adversarial bytes must never crash a decoder)."""
 import numpy as np
 import pytest
 
-from vecgo_tpu.storage import zstd
+from vecgo.storage import zstd
 
 
 def _cases():
@@ -74,7 +74,7 @@ def test_compression_ratio_beats_lz4_on_graph_sections():
     """ZSTD entropy-codes where LZ4 only match-codes: padded neighbor lists
     shrink strictly more (the reference offers ZSTD for exactly this
     ratio-over-speed tradeoff, compression.go:15-65)."""
-    from vecgo_tpu.storage import lz4
+    from vecgo.storage import lz4
 
     rng = np.random.default_rng(7)
     g = np.full((4000, 32), -1, np.int32)
@@ -91,9 +91,9 @@ def test_compression_ratio_beats_lz4_on_graph_sections():
 def test_container_zstd_roundtrip():
     """pack_container(compress='zstd') round-trips through unpack + lazy rows;
     without libzstd it degrades to deflate transparently."""
-    from vecgo_tpu.blobstore import MemoryStore
-    from vecgo_tpu.errors import ErrCorrupt
-    from vecgo_tpu.storage import container
+    from vecgo.blobstore import MemoryStore
+    from vecgo.errors import ErrCorrupt
+    from vecgo.storage import container
 
     rng = np.random.default_rng(13)
     a = (rng.standard_normal((200, 9)) * 8).astype(np.int8)
@@ -116,9 +116,9 @@ def test_container_zstd_roundtrip():
 @pytest.mark.skipif(not zstd.available(), reason="libzstd not found")
 def test_engine_zstd_segments():
     """compress_segments='zstd' end-to-end through commit + reopen."""
-    from vecgo_tpu.blobstore import MemoryStore
-    from vecgo_tpu.engine import Engine, EngineOptions
-    from vecgo_tpu.utils import testutil as tu
+    from vecgo.blobstore import MemoryStore
+    from vecgo.engine import Engine, EngineOptions
+    from vecgo.utils import testutil as tu
 
     store = MemoryStore()
     eng = Engine.open(
